@@ -1,16 +1,16 @@
-"""dsk_tpu — a TPU-native k-mer counting framework.
+"""dsk_tpu — a k-mer counting framework for accelerators, in JAX.
 
 A from-scratch re-design of the capabilities of GATB/dsk (reference:
-/root/reference, DSK 2.3.1 on gatb-core) for TPU hardware using
-JAX/XLA/Pallas.  The disk-streaming multi-pass architecture of the
+DSK 2.3.1 on gatb-core) as array programs compiled by XLA; it runs on an
+NVIDIA H100.  The disk-streaming multi-pass architecture of the
 reference (doc/paper.tex Algorithm 1) is re-expressed as:
 
     host input pipeline  ->  batched (B, L) 2-bit read tensors on device
-    ->  rolling canonical k-mer extraction (lax.scan / Pallas)
+    ->  canonical k-mer extraction (fused shifted-add sweep)
     ->  minimizer/hash routing to owner chips (shard_map + all_to_all)
     ->  per-chip sort + segment-reduce counting
     ->  collective histogram / statistics merge
-    ->  self-describing HDF5 output store + text dump tools.
+    ->  self-describing count store + text dump tools.
 
 Semantics contract (pinned by the reference's golden fixtures, see
 SURVEY.md section 0): canonical k-mers under the A<C<T<G alphabet order

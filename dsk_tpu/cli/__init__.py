@@ -6,5 +6,5 @@ single-dash long options exactly like the gatb OptionsParser
 
 Usage:
     python -m dsk_tpu.cli.dsk -file reads.fasta.gz -kmer-size 27 -out out
-    python -m dsk_tpu.cli.dsk2ascii -file out.h5 -out out.txt
+    python -m dsk_tpu.cli.dsk2ascii -file out.dsk -out out.txt
 """

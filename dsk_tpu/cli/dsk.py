@@ -1,4 +1,4 @@
-"""`dsk` CLI: count canonical k-mers into an HDF5 store.
+"""`dsk` CLI: count canonical k-mers into a count store (`<out>.dsk`).
 
 Replaces the reference's dsk tool (src/main.cpp, src/DSK.cpp).  The
 options are owned by the engine layer (RunParams) and merely surfaced
@@ -17,7 +17,7 @@ from dsk_tpu.engine.run import RunParams, execute
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(
         prog="dsk",
-        description="TPU-native k-mer counter (dsk-compatible CLI)",
+        description="k-mer counter on an accelerator (dsk-compatible CLI)",
         prefix_chars="-",
         add_help=False,
     )
@@ -59,9 +59,11 @@ def build_parser() -> argparse.ArgumentParser:
     opt.add_argument("-solid-kmers-out", dest="solid_kmers_out", default=None,
                      help="explicit output file for the solid-kmer store")
     opt.add_argument("-out-compress", dest="out_compress", type=int, default=0,
-                     help="gzip-compress the output store datasets")
-    opt.add_argument("-storage-type", dest="storage_type", default="hdf5",
-                     choices=["hdf5"], help="output container format")
+                     help="zlib-compress the output store datasets")
+    opt.add_argument("-storage-type", dest="storage_type", default="dsk",
+                     choices=["dsk"],
+                     help="output container format (numpy container "
+                          "directory, store/container.py)")
     opt.add_argument("-minimizer-size", dest="minimizer_size", type=int,
                      default=10, help="m-mer size for minimizer statistics")
     opt.add_argument("-minimizer-type", dest="minimizer_type", type=int,
@@ -91,7 +93,7 @@ def build_parser() -> argparse.ArgumentParser:
                      help="counting engine: static-shape mesh engine (dist), "
                           "dynamic single-device (simple), or auto")
     opt.add_argument("-resume", action="store_true",
-                     help="resume a multi-pass run from <out>.ckpt.h5")
+                     help="resume a multi-pass run from <out>.ckpt")
     opt.add_argument("-no-checkpoint", dest="no_checkpoint",
                      action="store_true",
                      help="disable per-pass checkpointing")

@@ -1,4 +1,4 @@
-"""`dsk2ascii` CLI: dump an HDF5 count store as text.
+"""`dsk2ascii` CLI: dump a count store as text.
 
 Replaces the reference's dsk2ascii tool (utils/dsk2ascii.cpp): re-opens
 the store, reads kmer_size from the dsk group, iterates solid partitions
@@ -13,7 +13,7 @@ import sys
 
 from dsk_tpu.kmer import codec
 from dsk_tpu.store import text as store_text
-from dsk_tpu.store.hdf5 import OutputStore
+from dsk_tpu.store.output import OutputStore
 
 # rows below which the parallel sorted dump is not worth the process
 # spawns (a segment worker costs ~0.5 s to start)
@@ -26,7 +26,7 @@ def _segment_worker(task) -> int:
     a segment file.  Concatenating segment files in order reproduces
     the serial dump byte-for-byte (sorted_segment_plan's contract)."""
     path, seg_path, bounds, pool_rows = task
-    from dsk_tpu.store.hdf5 import _merge_sorted_runs
+    from dsk_tpu.store.output import _merge_sorted_runs
     from dsk_tpu.utils.hostmem import tune_malloc
 
     tune_malloc()
@@ -89,8 +89,9 @@ def _dump_sorted_parallel(
             (path, f"{work}/seg_{i:03d}.txt", seg, 1 << 22)
             for i, seg in enumerate(plan)
         ]
-        # spawn: the workers import only numpy/h5py-level modules (no
-        # jax) — and never inherit this process's h5py handles
+        # spawn: the workers import only numpy-level modules (this
+        # module's import chain never imports jax, so no worker can
+        # initialise a device backend; tests/test_store_cli.py pins it)
         with ProcessPoolExecutor(
             max_workers=len(tasks), mp_context=get_context("spawn")
         ) as ex:
@@ -106,11 +107,11 @@ def _dump_sorted_parallel(
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(
         prog="dsk2ascii",
-        description="dump dsk_tpu HDF5 output as text",
+        description="dump a dsk_tpu count store as text",
         add_help=False,
     )
     p.add_argument("-help", "--help", action="help")
-    p.add_argument("-file", required=True, help="input .h5 count store")
+    p.add_argument("-file", required=True, help="input count store (<prefix>.dsk)")
     p.add_argument("-out", default=None, help="output text file (default stdout)")
     p.add_argument("-fasta", action="store_true", help="fasta-shaped output")
     p.add_argument("-fastq", action="store_true", help="fastq-shaped output")

@@ -1,4 +1,4 @@
-"""`dskdump`: dataset extraction from the HDF5 store (gatb-h5dump analog).
+"""`dskdump`: dataset extraction from the count store (gatb-h5dump analog).
 
 The reference's test pipeline extracts datasets as text with gatb-h5dump
 (scripts/simple_test.sh:37: `gatb-h5dump -y -d histogram/histogram out.h5`).
@@ -8,7 +8,7 @@ This prints:
   dsk/solid/<i>        ->  '<KMER> <count>' per line (decoded)
   dsk/solid            ->  all partitions concatenated
 
-Usage:  python -m dsk_tpu.cli.dskdump -d histogram/histogram out.h5
+Usage:  python -m dsk_tpu.cli.dskdump -d histogram/histogram out.dsk
 """
 
 from __future__ import annotations
@@ -17,7 +17,7 @@ import argparse
 import sys
 
 from dsk_tpu.kmer import codec
-from dsk_tpu.store.hdf5 import OutputStore
+from dsk_tpu.store.output import OutputStore
 
 
 def main(argv: list[str] | None = None) -> int:

@@ -2,13 +2,13 @@
 
 The reference is single-process; its cross-"partition" transport is the
 local filesystem (SURVEY.md §2.4, doc/paper.tex:71-76 — partition files as
-the interconnect).  The TPU replacement spans a pod slice: one Python
-process per host, `jax.distributed` for the runtime, one global mesh over
-every chip, and host-sharded input.
+the interconnect).  The replacement spans several processes: one Python
+process per host (or per card), `jax.distributed` for the runtime, one
+global mesh over every chip, and host-sharded input.
 
 Key pieces:
 
-  * initialize(): jax.distributed wrapper (env-auto on TPU pods).
+  * initialize(): jax.distributed wrapper (explicit coordinator).
   * shard_bank(): this host's input share as byte-range ReadUnits — a
     single large plain FASTA/FASTQ is split by ranges with record resync
     (io/native/fastx.cpp fx_open_range); gzip members are dealt whole
@@ -42,9 +42,14 @@ def initialize(
     coordinator: str | None = None,
     num_processes: int | None = None,
     process_id: int | None = None,
+    local_device_ids: list[int] | None = None,
 ) -> None:
     """jax.distributed.initialize wrapper (no-op if already initialized
     or single-process with no coordinator given).
+
+    local_device_ids: the cards of this host that this process opens
+    (e.g. [process_id] for one card per process on a GPU host); None
+    lets JAX open every local device.
 
     Must run before anything touches the XLA backend, so the
     already-initialized check reads jax.distributed's own state rather
@@ -54,17 +59,12 @@ def initialize(
     if getattr(_dist.global_state, "client", None) is not None:
         return
     if coordinator is None and num_processes is None:
-        # TPU pod env (TPU_WORKER_HOSTNAMES etc.) lets jax auto-detect;
-        # nothing to do on a single host.
-        try:
-            jax.distributed.initialize()
-        except Exception:
-            pass
-        return
+        return  # single process: nothing to initialize
     jax.distributed.initialize(
         coordinator_address=coordinator,
         num_processes=num_processes,
         process_id=process_id,
+        local_device_ids=local_device_ids,
     )
 
 

@@ -2,7 +2,7 @@
 
 The orchestration performed by the reference's DSK tool + SortingCount
 execute() (src/DSK.cpp:45-70): open the bank, run the engine, apply the
-count-processor chain (histogram / solidity / dump), write the HDF5
+count-processor chain (histogram / solidity / dump), write the count
 store with run-info, and optionally emit -histo / -histo2D text files.
 """
 
@@ -17,8 +17,9 @@ from dsk_tpu.engine import processors
 from dsk_tpu.engine.counter import CountEngine, CountResult
 from dsk_tpu.engine.planner import plan_resources
 from dsk_tpu.io.bank import open_bank
+from dsk_tpu.store import container
 from dsk_tpu.store import text as store_text
-from dsk_tpu.store.hdf5 import OutputStore
+from dsk_tpu.store.output import OutputStore
 from dsk_tpu.utils.timeinfo import Progress, TimeInfo
 
 
@@ -47,11 +48,11 @@ class RunParams:
     verbose: int = 1
     batch_rows: int = 0  # 0 = auto (planner sizes from read length)
     row_len: int = 0     # 0 = auto
-    resume: bool = False     # reuse <prefix>.ckpt.h5 pass checkpoints
+    resume: bool = False     # reuse <prefix>.ckpt pass checkpoints
     checkpoint: bool = True  # write per-pass checkpoints on multi-pass runs
     engine: str = "auto"     # auto | simple | dist
-    solid_kmers_out: str | None = None  # explicit .h5 output path
-    out_compress: bool = False          # gzip the store datasets
+    solid_kmers_out: str | None = None  # explicit store output path
+    out_compress: bool = False          # zlib-compress the store datasets
     minimizer_size: int = 10
     minimizer_type: int = 0             # 1 = frequency-balanced
     repartition_type: int = 0           # 1 = compute + store repartition stats
@@ -77,7 +78,7 @@ class RunParams:
                 if name.endswith(ext):
                     name = name[: -len(ext)]
             base = os.path.join(self.out_dir, name)
-        return base[:-3] if base.endswith(".h5") else base
+        return base[: -len(".dsk")] if base.endswith(".dsk") else base
 
     def custom_vector(self, nb_banks: int) -> np.ndarray | None:
         if not self.solidity_custom:
@@ -94,16 +95,18 @@ class RunParams:
 
 
 def _engine_choice(params: "RunParams") -> str:
-    """Resolve engine="auto" to "dist" | "simple" (probe devices once)."""
+    """Resolve engine="auto" to "dist" | "simple".
+
+    Any accelerator (one card or more) and any multi-device mesh run the
+    mesh engine; a single CPU device runs the dynamic-shape engine.  A
+    failed device probe raises rather than picking an engine."""
     choice = params.engine
     if choice == "auto":
-        try:
-            import jax
+        import jax
 
-            devs = jax.devices()
-            use_dist = devs[0].platform == "tpu" or len(devs) > 1
-        except Exception:
-            use_dist = False
+        from dsk_tpu.utils.devices import on_accelerator
+
+        use_dist = on_accelerator() or len(jax.devices()) > 1
         choice = "dist" if use_dist else "simple"
     return choice
 
@@ -113,12 +116,9 @@ def _engine_n_chips(choice: str) -> int:
     tables by it — VERDICT r1 weak item 5)."""
     if choice != "dist":
         return 1
-    try:
-        import jax
+    import jax
 
-        return len(jax.devices())
-    except Exception:
-        return 1
+    return len(jax.devices())
 
 
 def _select_engine(
@@ -132,10 +132,9 @@ def _select_engine(
     """Pick the counting engine (SURVEY.md C1's role).
 
     The static-shape mesh engine (DistCountEngine) is the production hot
-    path: on TPU (or any multi-device mesh) its programs compile once.
-    The dynamic-shape CountEngine covers per-bank modes (histo2D /
-    solidity kinds) and small CPU runs where flexibility beats compile
-    stability.
+    path: on any accelerator (or any multi-device mesh) its programs
+    compile once.  The dynamic-shape CountEngine covers small runs on
+    one CPU device, where flexibility beats compile stability.
     """
     choice = _engine_choice(params)
     if choice == "dist":
@@ -180,7 +179,7 @@ def _select_engine(
     )
 
 
-def _preserve_retry_work(engine, n_passes, ckpt, store, h5_path):
+def _preserve_retry_work(engine, n_passes, ckpt, store, store_path):
     """Work-preserving prep shared by the retry valves whose knob keeps
     the pass hash AND table geometry (WireOverflow -> bitmap,
     RoutingOverflow -> more slack): counted work survives the rebuild.
@@ -193,22 +192,18 @@ def _preserve_retry_work(engine, n_passes, ckpt, store, h5_path):
         )
     if n_passes > 1 and ckpt is not None:
         return None, True, store, " (completed passes kept via checkpoint)"
-    return None, False, _drop_partial_store(store, h5_path, ckpt), ""
+    return None, False, _drop_partial_store(store, store_path, ckpt), ""
 
 
-def _drop_partial_store(store, h5_path: str, ckpt) -> None:
+def _drop_partial_store(store, store_path: str, ckpt) -> None:
     """Discard a partially-written streaming store (and its checkpoint)
     before an overflow retry: a re-plan changes pass semantics, so
     already-written partitions are not reusable (the work-preserving
     retry path handles the cases where they are — see count_stream
     resume)."""
     if store is not None:
-        try:
-            store.close()
-        except Exception:
-            pass
-        if os.path.exists(h5_path):
-            os.unlink(h5_path)
+        store.close()
+        container.remove(store_path)
     if ckpt is not None:
         ckpt.remove()
     return None
@@ -218,7 +213,7 @@ def _drop_partial_store(store, h5_path: str, ckpt) -> None:
 class RunOutput:
     params: RunParams
     result: CountResult
-    h5_path: str
+    store_path: str
     n_solid: int
     histo_path: str | None = None
     histo2d_path: str | None = None
@@ -349,7 +344,7 @@ def execute(params: RunParams) -> RunOutput:
     # weak #5): the sink receives per-chip GROUPED (kmer, total, bank
     # matrix) rows and accumulates the histo2D matrix incrementally.
     stream_out = engine_kind == "dist"
-    h5_path = params.solid_kmers_out or (prefix_early + ".h5")
+    store_path = params.solid_kmers_out or (prefix_early + ".dsk")
     store = None
     n_solid_stream = 0
     # work-preserving retry state (VERDICT r2 weak #2 — the reference
@@ -371,8 +366,8 @@ def execute(params: RunParams) -> RunOutput:
     can_resume_passes = not (need_per_bank and params.histo2d)
     while True:
         # compile timed as its own phase: warm starts restore from the
-        # persistent compilation cache in ~1 s, cold remote compiles run
-        # to minutes — keeping it out of "count" keeps that phase an
+        # persistent compilation cache, cold compiles take tens of
+        # seconds — keeping it out of "count" keeps that phase an
         # honest streaming-throughput number
         with timers.phase("compile"):
             engine = _select_engine(
@@ -416,7 +411,7 @@ def execute(params: RunParams) -> RunOutput:
             from dsk_tpu.engine.checkpoint import PassCheckpoint
 
             ckpt = PassCheckpoint(
-                prefix_early + ".ckpt.h5", params, n_passes
+                prefix_early + ".ckpt", params, n_passes
             )
             if (params.resume or auto_resume) and can_resume_passes:
                 done_passes = ckpt.load()
@@ -429,7 +424,7 @@ def execute(params: RunParams) -> RunOutput:
         pass_sink = None
         if stream_out:
             os.makedirs(
-                os.path.dirname(os.path.abspath(h5_path)), exist_ok=True
+                os.path.dirname(os.path.abspath(store_path)), exist_ok=True
             )
             # mid-pass spill resume: the latest count mark's recorded
             # store sizes are CUMULATIVE (done passes' rows are a
@@ -441,7 +436,7 @@ def execute(params: RunParams) -> RunOutput:
                 store is None
                 and sckpt is not None
                 and params.resume
-                and os.path.exists(h5_path)
+                and os.path.exists(store_path)
             ):
                 latest = sckpt.latest_count()
                 mark_pass, extra = latest if latest else (None, None)
@@ -456,7 +451,7 @@ def execute(params: RunParams) -> RunOutput:
                     and all(q in done_passes for q in range(mark_pass))
                 )
                 if covered and extra is not None and "store_pids" in extra:
-                    store = OutputStore(h5_path, "a")
+                    store = OutputStore(store_path, "a")
                     store._compress = params.out_compress
                     store.truncate_partitions(
                         {
@@ -493,12 +488,12 @@ def execute(params: RunParams) -> RunOutput:
                         )
                     else:  # cannot align store to passes: recount all
                         done_passes = None
-                        store = _drop_partial_store(store, h5_path, None)
-            elif done_passes and os.path.exists(h5_path):
+                        store = _drop_partial_store(store, store_path, None)
+            elif done_passes and os.path.exists(store_path):
                 last = max(done_passes)
                 sizes = done_passes[last].info.get("store_sizes")
                 if sizes is not None:
-                    store = OutputStore(h5_path, "a")
+                    store = OutputStore(store_path, "a")
                     store._compress = params.out_compress
                     store.truncate_partitions(
                         {int(k_): int(v) for k_, v in sizes.items()}
@@ -516,7 +511,7 @@ def execute(params: RunParams) -> RunOutput:
                 sckpt.clear_counts()
             if store is None:
                 store = OutputStore.create(
-                    h5_path, k, compress=params.out_compress
+                    store_path, k, compress=params.out_compress
                 )
                 n_solid_stream = 0
                 histo2d_mat[:] = 0  # store restarted: drop partial sums
@@ -559,7 +554,6 @@ def execute(params: RunParams) -> RunOutput:
                 # each spill count mark snapshots the store state so a
                 # resume can truncate partial writes past the mark
                 def _spill_extra():
-                    store._f.flush()
                     szs = store.partition_sizes()
                     extra = {
                         "n_solid": n_solid_stream,
@@ -578,10 +572,10 @@ def execute(params: RunParams) -> RunOutput:
 
             def on_pass(p, res, _c=ckpt, _prog=progress, _n=n_passes):
                 if stream_out:
-                    # the sink already wrote this pass's rows; flush and
-                    # record the cumulative partition sizes so a resume
-                    # can truncate partial writes of a later crash
-                    store._f.flush()
+                    # the sink already wrote this pass's rows (store
+                    # appends are unbuffered); record the cumulative
+                    # partition sizes so a resume can truncate partial
+                    # writes of a later crash
                     res.info["store_sizes"] = {
                         str(pk): pv
                         for pk, pv in store.partition_sizes().items()
@@ -615,17 +609,10 @@ def execute(params: RunParams) -> RunOutput:
                 if params.trace_dir:
                     # device-side tracing (SURVEY.md 5.1): an xprof trace
                     # of the streaming count, viewable in tensorboard /
-                    # xprof.  Best-effort: some PJRT tunnels cannot
-                    # profile the device side; the run must not fail.
-                    import contextlib
-
+                    # xprof
                     import jax as _jax
 
-                    try:
-                        ctx = _jax.profiler.trace(params.trace_dir)
-                    except Exception:
-                        ctx = contextlib.nullcontext()
-                    with ctx:
+                    with _jax.profiler.trace(params.trace_dir):
                         result = engine.count(bank, **count_kwargs)
                 else:
                     result = engine.count(bank, **count_kwargs)
@@ -650,7 +637,7 @@ def execute(params: RunParams) -> RunOutput:
             # counted work survives exactly as for RoutingOverflow.
             wire = "bitmap"
             resume_snapshot, auto_resume, store, preserved = (
-                _preserve_retry_work(engine, n_passes, ckpt, store, h5_path)
+                _preserve_retry_work(engine, n_passes, ckpt, store, store_path)
             )
             progress.log(
                 f"[dsk_tpu] {e}; retrying with wire=bitmap" + preserved
@@ -670,7 +657,7 @@ def execute(params: RunParams) -> RunOutput:
             # way, so it stays open.  Without a checkpoint the store
             # cannot be aligned to passes: drop and recount.
             resume_snapshot, auto_resume, store, preserved = (
-                _preserve_retry_work(engine, n_passes, ckpt, store, h5_path)
+                _preserve_retry_work(engine, n_passes, ckpt, store, store_path)
             )
             progress.log(
                 f"[dsk_tpu] {e}; retrying with send_slack={send_slack}"
@@ -682,7 +669,7 @@ def execute(params: RunParams) -> RunOutput:
             # n_iters = ceil(v*b/D) rule (doc/paper.tex:66).  The pass
             # hash changes, so completed-pass store rows are invalid.
             attempt += 1
-            store = _drop_partial_store(store, h5_path, ckpt)
+            store = _drop_partial_store(store, store_path, ckpt)
             resume_snapshot = None
             auto_resume = False
             if attempt > params.max_retries:
@@ -696,7 +683,7 @@ def execute(params: RunParams) -> RunOutput:
             from dsk_tpu.dist.engine import CountVolumeOverflow
 
             attempt += 1
-            store = _drop_partial_store(store, h5_path, ckpt)
+            store = _drop_partial_store(store, store_path, ckpt)
             resume_snapshot = None  # pass hash changes: tables invalid
             auto_resume = False
             if attempt > params.max_retries:
@@ -805,7 +792,7 @@ def execute(params: RunParams) -> RunOutput:
             store.close()
         else:
             with OutputStore.create(
-                h5_path, k, compress=params.out_compress
+                store_path, k, compress=params.out_compress
             ) as store:
                 sizes = result.info.get("partition_sizes")
                 if sizes:
@@ -851,11 +838,11 @@ def execute(params: RunParams) -> RunOutput:
             store_text.write_histo2d(mat, f)
         progress.log(f"[dsk_tpu] histo2D matrix -> {histo2d_path}")
 
-    progress.log(f"[dsk_tpu] output -> {h5_path}")
+    progress.log(f"[dsk_tpu] output -> {store_path}")
     return RunOutput(
         params=params,
         result=result,
-        h5_path=h5_path,
+        store_path=store_path,
         n_solid=n_solid,
         histo_path=histo_path,
         histo2d_path=histo2d_path,

@@ -16,8 +16,8 @@ next to the counting sorts):
 
 The reference faces the same volume question at its process<->disk
 boundary and packs partition files to 2 bits/base (doc/paper.tex:104);
-this is that idea applied to the TPU's ingest boundary, where the wire
-(tunnel or NIC) is the CLI bottleneck.
+this is that idea applied to the device's ingest boundary (host->device
+bytes; whether they are on the critical path over PCIe is ROADMAP S3f).
 
 Layout (row-major, LSB-first so unpack is a single shift):
   base i of a row  -> code word i // 16, bits 2*(i % 16)

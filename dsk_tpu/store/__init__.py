@@ -9,4 +9,4 @@ writers (C12).  Layout mirrors the reference contract (README.md:77-78):
     dsk attrs            kmer_size, nb_words, xml / json run info
 """
 
-from dsk_tpu.store.hdf5 import OutputStore  # noqa: F401
+from dsk_tpu.store.output import OutputStore  # noqa: F401

@@ -1,15 +1,16 @@
-"""HDF5 output store: the durable, self-describing result container.
+"""Count store: the durable, self-describing result container.
 
-The TPU framework's equivalent of gatb-core's StorageHDF5 (SURVEY.md C8;
+This package's equivalent of gatb-core's StorageHDF5 (SURVEY.md C8;
 reference usage: src/DSK.hpp:48 `getStorageMode()=STORAGE_HDF5`,
 utils/dsk2ascii.cpp:31-77 re-open + iterate).  Same conceptual layout as
-the reference (README.md:77-78):
+the reference (README.md:77-78), held in a numpy-only container directory
+(store/container.py, `<prefix>.dsk`) instead of an HDF5 file:
 
-  /dsk/solid/<i>         one dataset per partition, compound records
+  dsk/solid/<i>          one dataset per partition, compound records
                          {value: (W,) uint32 big-endian-word kmer,
                           abundance: int32}
-  /histogram/histogram   compound {index: int64, abundance: int64} pairs
-  /dsk  attrs:           kmer_size, nb_words, xml (run-info XML string),
+  histogram/histogram    compound {index: int64, abundance: int64} pairs
+  dsk  attrs:            kmer_size, nb_words, xml (run-info XML string),
                          json (run-info JSON string)
 
 The kmer word layout is the canonical device representation (word 0 most
@@ -17,7 +18,7 @@ significant; dsk_tpu.kmer.codec.value_to_words), so stored bytes are
 directly comparable with device output and lexicographic word order ==
 the A<C<T<G kmer order.
 
-DELIBERATE re-design, NOT byte-compatible with gatb's container: the
+DELIBERATE re-design, NOT compatible with gatb's container: the
 reference stores little-endian-word LargeInt records plus gatb's own
 group/attribute plumbing, so its tools (utils/dsk2ascii.cpp) cannot open
 this store and vice versa.  Keeping the device word order on disk makes
@@ -36,15 +37,8 @@ from typing import Iterator
 
 import numpy as np
 
-try:
-    import h5py
-
-    HAVE_H5PY = True
-except ImportError:  # pragma: no cover
-    h5py = None
-    HAVE_H5PY = False
-
 from dsk_tpu.kmer import codec
+from dsk_tpu.store.container import Container
 
 
 def _lex_order(kk: np.ndarray) -> np.ndarray:
@@ -107,7 +101,7 @@ def _merge_sorted_runs(
     counts (m,) int64) array chunks with bounded memory.
 
     runs: (dataset-like, start, stop) triples; the dataset must slice
-    to a structured array with 'value'/'abundance' fields (h5py
+    to a structured array with 'value'/'abundance' fields (container
     datasets and numpy mmap arrays both qualify).
 
     Round structure: read one chunk from every refill-due run, pool
@@ -204,13 +198,11 @@ def _props_to_xml(props: dict, root: str = "dsk") -> str:
 
 
 class OutputStore:
-    """Create/load the HDF5 result container."""
+    """Create/load the count store."""
 
     def __init__(self, path: str, mode: str = "r"):
-        if not HAVE_H5PY:  # pragma: no cover
-            raise RuntimeError("h5py is required for the HDF5 store")
         self.path = path
-        self._f = h5py.File(path, mode)
+        self._f = Container(path, mode)
 
     # -- writing ---------------------------------------------------------
 
@@ -233,8 +225,9 @@ class OutputStore:
         rec = np.empty(kmers.shape[0], dtype=_count_dtype(w))
         rec["value"] = np.asarray(kmers, dtype=np.uint32).reshape(-1, w)
         rec["abundance"] = np.asarray(counts, dtype=np.int32)
-        kw = {"compression": "gzip"} if getattr(self, "_compress", False) and rec.shape[0] else {}
-        ds = self._f["dsk/solid"].create_dataset(str(idx), data=rec, **kw)
+        ds = self._f["dsk/solid"].create_dataset(
+            str(idx), data=rec, compression=self._compression()
+        )
         # run map for the sorted-merge dump (see append_solid_partition)
         ds.attrs["run_sizes"] = np.asarray(
             _ascending_runs(rec["value"], w), np.int64
@@ -262,20 +255,13 @@ class OutputStore:
         solid = self._f["dsk/solid"]
         name = str(idx)
         if name not in solid:
-            kw = (
-                {"compression": "gzip"}
-                if getattr(self, "_compress", False)
-                else {}
-            )
             solid.create_dataset(
-                name, shape=(0,), maxshape=(None,),
-                dtype=_count_dtype(w), chunks=(1 << 16,), **kw
+                name, dtype=_count_dtype(w),
+                compression=self._compression(),
             )
         ds = solid[name]
-        off = ds.shape[0]
-        ds.resize((off + n,))
         if n:
-            ds[off:] = rec
+            ds.append(rec)
             # record run boundaries so `dsk2ascii -sorted` can stream a
             # k-way merge over (partition, run) pairs instead of
             # materializing + sorting the whole table on the host
@@ -291,6 +277,10 @@ class OutputStore:
             runs.extend(_ascending_runs(rec["value"], w))
             ds.attrs["run_sizes"] = np.asarray(runs, np.int64)
 
+    def _compression(self) -> str | None:
+        # -out-compress: zlib blocks (store/container.py)
+        return "zlib" if getattr(self, "_compress", False) else None
+
     def partition_sizes(self) -> dict[int, int]:
         solid = self._f["dsk/solid"]
         return {int(name): int(solid[name].shape[0]) for name in solid}
@@ -305,7 +295,7 @@ class OutputStore:
             if want is None:
                 del solid[name]
             elif solid[name].shape[0] != want:
-                solid[name].resize((want,))
+                solid[name].resize(want)
                 # drop whole runs past the truncation point; a mismatch
                 # (truncation inside a run) invalidates the run map and
                 # the sorted dump falls back to the full host sort
@@ -331,8 +321,9 @@ class OutputStore:
         rec["abundance"] = hist[1:]
         if "histogram" in self._f["histogram"]:  # streaming-resume reopen
             del self._f["histogram"]["histogram"]
-        kw = {"compression": "gzip"} if getattr(self, "_compress", False) else {}
-        self._f["histogram"].create_dataset("histogram", data=rec, **kw)
+        self._f["histogram"].create_dataset(
+            "histogram", data=rec, compression=self._compression()
+        )
 
     def set_run_info(self, props: dict) -> None:
         """Persist the run-info tree as xml + json attrs on the dsk group
@@ -600,8 +591,8 @@ class OutputStore:
                     path = os.path.join(work, f"run_{i:06d}.npy")
                     np.save(path, rec[order])
                     i += 1
-                    # memory-mapped structured array: slices like the
-                    # h5py dataset, reads lazily from disk
+                    # memory-mapped structured array: slices like a
+                    # container dataset, reads lazily from disk
                     arr = np.load(path, mmap_mode="r")
                     runs.append((arr, 0, int(arr.shape[0])))
             yield from _merge_sorted_runs(runs, W, pool_rows)
@@ -612,7 +603,7 @@ class OutputStore:
         return sum(ds.shape[0] for ds in self._f["dsk/solid"].values())
 
     def close(self) -> None:
-        self._f.close()
+        """Nothing to release: the container holds no open files."""
 
     def __enter__(self) -> "OutputStore":
         return self

@@ -11,7 +11,7 @@ from typing import Iterable, TextIO
 import numpy as np
 
 from dsk_tpu.kmer import codec
-from dsk_tpu.store.hdf5 import OutputStore
+from dsk_tpu.store.output import OutputStore
 
 
 def format_count_lines(letters: np.ndarray, counts: np.ndarray) -> bytes:
@@ -67,7 +67,7 @@ def dump_ascii(
     k = store.kmer_size
     n = 0
     if not (fasta or fastq):
-        # bounded: one HDF5 chunk in memory at a time (peak RSS
+        # bounded: one store chunk in memory at a time (peak RSS
         # independent of store size — VERDICT r4 weak #3)
         for _pidx, kk, cc in store.iter_solid_chunks(DUMP_CHUNK_ROWS):
             out.write(

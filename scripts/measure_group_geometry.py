@@ -1,14 +1,13 @@
-"""Fenced device-step sweep over flush-group geometry (one v5e chip).
+"""Fenced device-step sweep over flush-group geometry (one card).
 
-measure_sort_keys.py showed the flat flush sort is sub-linear per row
-(10.2M rows -> 7.3 ms/Mrow, 18.4M -> 6.76) and each flush re-sorts the
-whole table_cap, so FEWER+BIGGER flush groups and a distinct-sized cap
-should both win.  This sweeps (buf_batches, table_cap) at bench geometry
-and reports device-ceiling bases/s per config (wire excluded: groups are
-device-resident, steps fenced by a 1-element D2H fetch).
+Each flush re-sorts the whole table_cap, so fewer, bigger flush groups
+and a distinct-sized cap should both win until the flush sort's
+super-linearity takes over.  This sweeps (buf_batches, table_cap) at
+bench geometry and reports device-ceiling bases/s per config (wire
+excluded: groups are device-resident, steps fenced with
+jax.block_until_ready).  Best-of-K reps, stderr progress.
 
-Protocol (CLAUDE.md): warmup put+fetch first, best-of-K fenced reps,
-persistent compile cache, stderr progress.
+Usage: python scripts/measure_group_geometry.py [k]
 """
 
 import pathlib
@@ -32,19 +31,12 @@ def main():
     import jax
     import jax.numpy as jnp
 
-    jax.config.update("jax_compilation_cache_dir", "/root/.jax_cache")
-    jax.config.update("jax_persistent_cache_min_compile_time_secs", 0.5)
-
     from bench import make_batches
     from dsk_tpu.dist.engine import DistCountEngine, default_mesh
     from dsk_tpu.io.packed import pack_codes
 
     dev = jax.devices()[0]
-    log(f"device: {dev}")
-    t0 = time.perf_counter()
-    x = jax.device_put(np.ones(8, np.uint32), dev)
-    _ = np.asarray(x[:1])
-    log(f"warmup put+fetch {time.perf_counter() - t0:.1f}s")
+    log(f"device: {dev.device_kind} ({dev.platform})")
 
     rows, row_len = 2048, 1024
     k = int(sys.argv[1]) if len(sys.argv) > 1 else 31
@@ -80,7 +72,7 @@ def main():
         cd = jax.device_put(np.stack(ws), dev)
         md = jax.device_put(np.stack(ms), dev)
         bd = jax.device_put(np.stack([b.bank_ids for b in batches]), dev)
-        _ = np.asarray(cd.ravel()[:1])  # fence the puts
+        jax.block_until_ready(cd)  # fence the puts
         st = engine._init_state()
         tab_p, tab_c, over, tover = st
         ps = jnp.int32(0)
@@ -90,7 +82,7 @@ def main():
         tab_p, tab_c, over, tover = engine._step(
             cd, md, bd, tab_p, tab_c, over, tover, ps
         )
-        _ = np.asarray(over.ravel()[:1])
+        jax.block_until_ready(over)
         log(f"  compile+first {time.perf_counter() - t0:.1f}s")
         best = float("inf")
         for _ in range(4):
@@ -98,7 +90,7 @@ def main():
             tab_p, tab_c, over, tover = engine._step(
                 cd, md, bd, tab_p, tab_c, over, tover, ps
             )
-            _ = np.asarray(over.ravel()[:1])
+            jax.block_until_ready(over)
             best = min(best, time.perf_counter() - t0)
         group_bases = G * rows * row_len
         mbps = group_bases / best / 1e6

@@ -1,5 +1,5 @@
 """Host-only ingest throughput: gunzip + parse + 2-bit encode + row pack
-+ wire pack, no device.  This is the non-TPU half of the count path; on
++ wire pack, no device.  This is the host half of the count path; on
 real metal (PCIe H2D at GB/s) end-to-end throughput is
 min(host ingest, device pipeline), so this number is the e2e projection
 partner of PERF.md's device ceiling.

@@ -10,14 +10,17 @@ becomes jax.distributed + a global mesh + all_to_all routing
   * its own chips' partitions (the partition-files analog), saved as
     <out>.part<pid>.npz,
 
-after which process 0 merges the partition files into the final HDF5
-store + .histo (the same outputs as a single-host `dsk` run).
+after which process 0 merges the partition files into the final count
+store (<out>.dsk) + .histo (the same outputs as a single-host `dsk` run).
 
 Launch (every host, or locally for testing):
 
     python scripts/multihost_count.py -coordinator host0:8476 \
         -num-processes N -process-id I -file reads.fasta -kmer-size 27 \
         -out /shared/out [-abundance-min 2] [-table-cap 2**20] ...
+
+On a GPU host, one process per card: add `-local-device-ids I` so each
+process opens only its own card.
 
 CPU simulation: JAX_PLATFORMS=cpu + xla_force_host_platform_device_count.
 """
@@ -38,6 +41,11 @@ def main() -> int:
     ap.add_argument("-num-processes", dest="num_processes", type=int,
                     required=True)
     ap.add_argument("-process-id", dest="process_id", type=int, required=True)
+    ap.add_argument("-local-device-ids", dest="local_device_ids",
+                    default=None,
+                    help="comma list of this host's cards this process "
+                         "opens (e.g. its process id, one card per "
+                         "process); default: every local device")
     ap.add_argument("-file", required=True)
     ap.add_argument("-kmer-size", dest="kmer_size", type=int, default=31)
     ap.add_argument("-abundance-min", dest="abundance_min", type=int,
@@ -58,7 +66,7 @@ def main() -> int:
                          "kmer with a bank matrix; requires "
                          "-spill-partitions > 0.  Outputs .part<i>.npz "
                          "with a `banks` matrix + the global .histo "
-                         "(no merged .h5)")
+                         "(no merged .dsk)")
     ap.add_argument("-selfdestruct-after-groups",
                     dest="selfdestruct", type=int, default=0,
                     help="FAILURE INJECTION (tests): hard-kill this "
@@ -77,7 +85,11 @@ def main() -> int:
     from dsk_tpu.dist import multihost
 
     multihost.initialize(
-        args.coordinator, args.num_processes, args.process_id
+        args.coordinator, args.num_processes, args.process_id,
+        local_device_ids=(
+            [int(x) for x in args.local_device_ids.split(",")]
+            if args.local_device_ids else None
+        ),
     )
     import jax
     from jax.experimental import multihost_utils
@@ -92,7 +104,7 @@ def main() -> int:
     from dsk_tpu.dist.engine import DistCountEngine, default_mesh
     from dsk_tpu.io.bank import open_bank
     from dsk_tpu.store import text as store_text
-    from dsk_tpu.store.hdf5 import OutputStore
+    from dsk_tpu.store.output import OutputStore
 
     bank = open_bank(args.file)
     shard = multihost.shard_bank(bank)
@@ -263,7 +275,7 @@ def main() -> int:
                 )
                 off += sz
         del order, all_ids
-        with OutputStore.create(args.out + ".h5", args.kmer_size) as store:
+        with OutputStore.create(args.out + ".dsk", args.kmer_size) as store:
             for gid in sorted(chunks):
                 km, ct = chunks[gid]
                 solid = ct >= args.abundance_min
@@ -279,7 +291,7 @@ def main() -> int:
             )
         with open(args.out + ".histo", "w") as f:
             store_text.write_histo(res.histogram, f)
-        print(f"[mh 0] wrote {args.out}.h5 / .histo", file=sys.stderr,
+        print(f"[mh 0] wrote {args.out}.dsk / .histo", file=sys.stderr,
               flush=True)
     multihost_utils.sync_global_devices("dsk_tpu_mh_done")
     if pid == 0 and spill_ckpt is not None:

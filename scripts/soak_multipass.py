@@ -1,4 +1,4 @@
-"""At-scale consistency gate on real TPU: 100 Mbase fastq.gz counted
+"""At-scale consistency gate on the device: 100 Mbase fastq.gz counted
 twice — default plan vs forced multi-pass — must produce identical
 (kmer, count) sets and histograms.
 
@@ -41,13 +41,14 @@ def run(inp, out, **kw):
     return res
 
 
-def load(h5path):
-    import h5py
+def load(path):
+    from dsk_tpu.store.output import OutputStore
 
-    with h5py.File(h5path, "r") as f:
-        parts = sorted(f["dsk/solid"].keys(), key=int)
-        rows = [f[f"dsk/solid/{p}"][()] for p in parts]
-        hist = f["histogram/histogram"][()]
+    with OutputStore.load(str(path)) as store:
+        f = store._f
+        parts = sorted(f["dsk/solid"], key=int)
+        rows = [f[f"dsk/solid/{p}"][:] for p in parts]
+        hist = f["histogram/histogram"][:]
     solid = np.concatenate(rows) if rows else np.zeros((0,))
     return solid, hist
 
@@ -56,27 +57,18 @@ def main():
     from dsk_tpu.utils.hostmem import tune_malloc
 
     tune_malloc()
-    # CLAUDE.md protocol: a tiny put+fetch FIRST — about half of fresh
-    # processes hang minutes at their first D2H otherwise
-    import jax
-
-    t0 = time.time()
-    x = jax.device_put(np.ones(8, np.uint32), jax.devices()[0])
-    _ = np.asarray(x[:1])
-    log(f"warmup put+fetch {time.time() - t0:.1f}s")
-
-    from measure_cli_e2e import make_input
+    from measure_cli_e2e import CACHE, make_input
 
     n_mbases = int(sys.argv[1]) if len(sys.argv) > 1 else 100
     inp = make_input(n_mbases)
-    base = pathlib.Path("/tmp/dsk_tpu_e2e")
+    base = CACHE
 
     run(inp, base / "soak_1pass")
     # small memory budget forces >= 2 passes and the 2-bit batch cache
     run(inp, base / "soak_npass", max_memory=220)
 
-    s1, h1 = load(base / "soak_1pass.h5")
-    s2, h2 = load(base / "soak_npass.h5")
+    s1, h1 = load(base / "soak_1pass.dsk")
+    s2, h2 = load(base / "soak_npass.dsk")
     assert h1.shape == h2.shape and (h1 == h2).all(), "histogram mismatch"
     assert s1.shape == s2.shape, f"solid count {s1.shape} vs {s2.shape}"
 

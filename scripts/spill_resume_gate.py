@@ -1,5 +1,5 @@
 #!/usr/bin/env python
-"""On-hardware gate for MID-PASS spill resume (round 5).
+"""Device gate for MID-PASS spill resume (round 5).
 
 A checkpointed spill run is killed mid-count (a store-append hook
 raises after N partitions land), then re-executed with -resume: the
@@ -9,9 +9,9 @@ the uninterrupted reference store.  Exceeds the reference, which has no
 mid-run checkpoint (SURVEY.md §5.3-5.4); the fixed-memory disk engine
 is exactly the mode whose runs are long enough to need one.
 
-Reuses /tmp/gbase192 (input_g16M.fasta + a.h5 from tpu_spill_guard).
+Reuses <tmp>/gbase192 (input_g16M.fasta + a.dsk from spill_guard.py).
 
-    python scripts/tpu_spill_resume_gate.py [--bases 192 --genome-mb 16]
+    python scripts/spill_resume_gate.py [--bases 192 --genome-mb 16]
 """
 
 from __future__ import annotations
@@ -20,8 +20,6 @@ import json
 import os
 import sys
 import time
-
-import numpy as np
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
@@ -52,23 +50,20 @@ def main() -> int:
     import scripts.validate_gbase as vg
 
     vg.GENOME_MB = genome_mb
-    tag_dir = f"/tmp/gbase{total_mb}"
+    tag_dir = vg.work_dir(total_mb, plain_1024=False)
     os.makedirs(tag_dir, exist_ok=True)
     fasta = f"{tag_dir}/input_g{genome_mb}M.fasta"
 
     import jax
 
     dev = jax.devices()[0]
-    log(f"device: {dev}")
-    x = jax.device_put(np.arange(8, dtype=np.int32), dev)
-    assert int(np.asarray(x)[3]) == 3
-    log("warmup ok")
+    log(f"device: {dev.device_kind} ({dev.platform})")
 
     vg.gen_input(fasta, total_mb)
 
     from dsk_tpu.dist.engine import DistCountEngine
     from dsk_tpu.engine.run import RunParams, execute
-    from dsk_tpu.store.hdf5 import OutputStore
+    from dsk_tpu.store.output import OutputStore
 
     params = dict(
         file=fasta, kmer_size=31, abundance_min=3, verbose=2, histo=1,
@@ -129,9 +124,9 @@ def main() -> int:
     assert not os.path.isdir(ckpt_dir), "ckpt not cleaned after success"
 
     # -- compare against the uninterrupted reference store -------------
-    # shared input-keying discipline (vg.ensure_ref_store): reuse a.h5
+    # shared input-keying discipline (vg.ensure_ref_store): reuse a.dsk
     # only when its sidecar matches THIS input, else build it fresh
-    ref_h5 = vg.ensure_ref_store(
+    ref_store = vg.ensure_ref_store(
         tag_dir, fasta,
         lambda: execute(RunParams(
             file=fasta, kmer_size=31, abundance_min=3, verbose=2,
@@ -139,9 +134,9 @@ def main() -> int:
             out=f"{tag_dir}/a",
         )),
     )
-    same_hist, same_tab, rows = vg.compare_stores(ref_h5, out.h5_path)
+    same_hist, same_tab, rows = vg.compare_stores(ref_store, out.store_path)
     gate = {
-        "gate": "tpu_spill_resume",
+        "gate": "spill_resume",
         "bases_mb": total_mb,
         "device": str(dev),
         "kill_after_partitions": kill_after,

@@ -5,7 +5,7 @@ The reference's paper harness sweeps memory x disk cells under an RSS
 monitor and classifies crash modes from the logs
 (doc/figure-1/monitor-memory.sh:1-23, process-log.py:14-19:
 out-of-memory, too-many-open-files, disk-full; committed result tables
-doc/figure-1/ecoli_log, droso_log).  This sweeps the TPU analogs over
+doc/figure-1/ecoli_log, droso_log).  This sweeps the analogs over
 the PRODUCTION dist engine through the full execute() stack:
 
   memory budget  -> planner table capacity (-max-memory)

@@ -1,4 +1,4 @@
-"""Gbase-class TPU validation run (VERDICT r2 next-item 3).
+"""Gbase-class validation run on the device (VERDICT r2 next-item 3).
 
 One synthetic ~1.02 Gbase FASTA (16 Mbase genome, 62x coverage,
 ~16M distinct 31-mers) driven twice through the FULL execute() stack on
@@ -23,8 +23,7 @@ Reference tier analog: /root/reference/doc/figure-1/ecoli_log:12
 (749 Mbases) and droso_log (1.37 Gbases).
 
 Run: python scripts/validate_gbase.py [--bases 1024] (Mbases; smaller
-for smoke).  Writes everything under /tmp/gbase.  Protocol per
-CLAUDE.md: tune_malloc, warmup fetch, one process, stderr progress.
+for smoke).  Writes everything under <tmp>/gbase (work_dir()).
 """
 
 from __future__ import annotations
@@ -89,7 +88,7 @@ def gen_input(path: str, total_mbases: int, seed: int = 0) -> None:
 def load_store(path):
     import numpy as np
 
-    from dsk_tpu.store.hdf5 import OutputStore
+    from dsk_tpu.store.output import OutputStore
 
     ks, cs = [], []
     with OutputStore.load(path) as store:
@@ -105,41 +104,57 @@ def load_store(path):
     return k[order], c[order], hist
 
 
+def work_dir(total_mb: int, plain_1024: bool = True) -> str:
+    """<tmp>/gbase<bases> (plain <tmp>/gbase at the 1024 Mbase tier)."""
+    import tempfile
+
+    tag = "" if (plain_1024 and total_mb == 1024) else str(total_mb)
+    return os.path.join(tempfile.gettempdir(), f"gbase{tag}")
+
+
+def _dir_mb(path: str) -> float:
+    total = 0
+    for root, _dirs, files in os.walk(path):
+        total += sum(os.path.getsize(os.path.join(root, f)) for f in files)
+    return round(total / (1 << 20), 1)
+
+
 def ensure_ref_store(tag_dir: str, fasta: str, build) -> str:
-    """Reuse `tag_dir`/a.h5 only when its sidecar records THIS input
+    """Reuse `tag_dir`/a.dsk only when its sidecar records THIS input
     (path + byte size); otherwise delete the stale store, call
-    build() — which must write `tag_dir`/a.h5 — and stamp the sidecar.
+    build() — which must write `tag_dir`/a.dsk — and stamp the sidecar.
     Shared by every gate script so the keying stays byte-compatible
     (round-5 lesson: an unkeyed reuse at a different --genome-mb
     silently compared across inputs and reported a fake FAIL)."""
     import json
-    import os
 
-    ref_h5 = os.path.join(tag_dir, "a.h5")
-    sidecar = ref_h5 + ".input.json"
+    from dsk_tpu.store import container
+
+    ref_store = os.path.join(tag_dir, "a.dsk")
+    sidecar = ref_store + ".input.json"
     key = {"input": fasta, "bytes": os.path.getsize(fasta)}
-    if os.path.exists(ref_h5) and os.path.exists(sidecar):
+    if os.path.exists(ref_store) and os.path.exists(sidecar):
         try:
             with open(sidecar) as f:
                 if json.load(f) == key:
-                    log(f"reference store {ref_h5} reused (input matches)")
-                    return ref_h5
+                    log(f"reference store {ref_store} reused (input matches)")
+                    return ref_store
         except (OSError, ValueError):
             pass
-    if os.path.exists(ref_h5):
+    if os.path.exists(ref_store):
         log("reference store stale (different input): rebuilding")
-        os.unlink(ref_h5)
+        container.remove(ref_store)
     build()
     with open(sidecar, "w") as f:
         json.dump(key, f)
-    return ref_h5
+    return ref_store
 
 
-def compare_stores(a_h5: str, b_h5: str) -> tuple[bool, bool, int]:
+def compare_stores(a_store: str, b_store: str) -> tuple[bool, bool, int]:
     """(histogram identical, table identical, rows) between two stores
-    — the shared identity gate for this script and tpu_volume_guard."""
-    ka, ca, ha = load_store(a_h5)
-    kb, cb, hb = load_store(b_h5)
+    — the shared identity gate for this script and volume_guard.py."""
+    ka, ca, ha = load_store(a_store)
+    kb, cb, hb = load_store(b_store)
     same_hist = ha.shape == hb.shape and bool((ha == hb).all())
     same_tab = (
         ka.shape == kb.shape
@@ -168,15 +183,12 @@ def main() -> int:
     max_disk = 150
     if "--max-disk" in sys.argv:
         max_disk = int(sys.argv[sys.argv.index("--max-disk") + 1])
-    tag_dir = f"/tmp/gbase{total_mb}" if total_mb != 1024 else "/tmp/gbase"
+    tag_dir = work_dir(total_mb)
 
     import jax
 
     dev = jax.devices()[0]
-    log(f"device: {dev}")
-    x = jax.device_put(np.arange(8, dtype=np.int32), dev)
-    assert int(np.asarray(x)[3]) == 3
-    log("warmup ok")
+    log(f"device: {dev.device_kind} ({dev.platform})")
 
     os.makedirs(tag_dir, exist_ok=True)
     # cache key includes the genome size: a changed --genome-mb must
@@ -227,8 +239,8 @@ def main() -> int:
             "nb_passes": info["config"]["nb_passes"],
             "nb_distinct": info["nb_distinct_kmers"],
             "time": info.get("time"),
-            "h5": out.h5_path,
-            "h5_mb": round(os.path.getsize(out.h5_path) / (1 << 20), 1),
+            "store": out.store_path,
+            "store_mb": _dir_mb(out.store_path),
         }
         return out
 
@@ -245,13 +257,13 @@ def main() -> int:
             raise SystemExit(
                 f"--extra-leg tag {tag!r} would clobber the reference runs"
             )
-        if not os.path.exists(f"{tag_dir}/a.h5"):
+        if not os.path.exists(f"{tag_dir}/a.dsk"):
             raise SystemExit(
                 "--extra-leg needs a completed run A in "
                 f"{tag_dir} (run without --extra-leg first)"
             )
         run(tag, shrink, max_memory=max_memory)
-        results["a"] = {"h5": f"{tag_dir}/a.h5"}
+        results["a"] = {"store": f"{tag_dir}/a.dsk"}
         results["b"] = results[tag]
     else:
         # run A: clean, tight -max-disk (cache abort-and-reread live)
@@ -261,7 +273,7 @@ def main() -> int:
 
     log("comparing stores (host lexsort of both tables)...")
     same_hist, same_tab, rows = compare_stores(
-        results["a"]["h5"], results["b"]["h5"]
+        results["a"]["store"], results["b"]["store"]
     )
     log(f"histogram identical: {same_hist}; table identical: {same_tab}")
     results["identity"] = {

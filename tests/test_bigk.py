@@ -131,7 +131,7 @@ def test_planner_bigk_sampling(big_fasta):
 
 def test_end_to_end_store_and_dump(big_fasta, tmp_path):
     from dsk_tpu.engine.run import RunParams, execute
-    from dsk_tpu.store.hdf5 import OutputStore
+    from dsk_tpu.store.output import OutputStore
 
     k = 96
     params = RunParams(
@@ -145,11 +145,11 @@ def test_end_to_end_store_and_dump(big_fasta, tmp_path):
     from dsk_tpu.cli import dsk2ascii
 
     txt = tmp_path / "dump.txt"
-    dsk2ascii.main(["-file", out.h5_path, "-out", str(txt), "-sorted"])
+    dsk2ascii.main(["-file", out.store_path, "-out", str(txt), "-sorted"])
     got = {}
     for line in open(txt):
         s, c = line.split()
         got[codec.string_to_kmer(s)] = int(c)
     assert got == want
-    with OutputStore(out.h5_path) as store:
+    with OutputStore(out.store_path) as store:
         assert store.kmer_size == k

@@ -28,7 +28,7 @@ def test_checkpoint_roundtrip(data_dir, tmp_path):
     full = eng.count(
         uri, n_passes=3, on_pass=lambda p, r: saved.setdefault(p, r)
     )
-    ck = PassCheckpoint(str(tmp_path / "c.ckpt.h5"), params, 3)
+    ck = PassCheckpoint(str(tmp_path / "c.ckpt"), params, 3)
     for p, r in saved.items():
         ck.save_pass(p, r)
     loaded = ck.load()
@@ -42,7 +42,7 @@ def test_checkpoint_roundtrip(data_dir, tmp_path):
     assert result_as_dict(resumed) == result_as_dict(full)
     # fingerprint mismatch discards the checkpoint
     params2 = RunParams(file=uri, kmer_size=21, batch_rows=8, row_len=64)
-    ck2 = PassCheckpoint(str(tmp_path / "c.ckpt.h5"), params2, 3)
+    ck2 = PassCheckpoint(str(tmp_path / "c.ckpt"), params2, 3)
     assert ck2.load() == {}
 
 
@@ -55,7 +55,7 @@ def test_resume_after_crash(data_dir, tmp_path):
         out=str(tmp_path / "r"),
     )
     eng = CountEngine(20, batch_rows=8, row_len=64)
-    ck = PassCheckpoint(params.out_prefix() + ".ckpt.h5", params, 3)
+    ck = PassCheckpoint(params.out_prefix() + ".ckpt", params, 3)
 
     def crash_after_first(p, r):
         ck.save_pass(p, r)
@@ -88,4 +88,4 @@ def test_execute_resume_end_to_end(data_dir, tmp_path):
     out = execute(params)
     assert out.n_solid == 93948
     # checkpoint removed on success
-    assert not os.path.exists(params.out_prefix() + ".ckpt.h5")
+    assert not os.path.exists(params.out_prefix() + ".ckpt")

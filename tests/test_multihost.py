@@ -499,3 +499,23 @@ def test_four_process_spill_with_split(plain_fixture, tmp_path, data_dir):
     assert len(all_ids) == len(set(all_ids))  # split ids globally unique
     assert max(all_ids) >= 4  # at least one split actually happened
     assert seen == {v: c for v, c in oracle.items()}
+
+
+def test_initialize_passes_local_device_ids(monkeypatch):
+    """One card per process on a GPU host: local_device_ids reaches
+    jax.distributed.initialize; with no coordinator nothing is called."""
+    import jax
+
+    from dsk_tpu.dist import multihost
+
+    calls = []
+    monkeypatch.setattr(
+        jax.distributed, "initialize", lambda **kw: calls.append(kw)
+    )
+    multihost.initialize()
+    assert calls == []
+    multihost.initialize("localhost:1234", 4, 2, local_device_ids=[2])
+    assert calls == [{
+        "coordinator_address": "localhost:1234", "num_processes": 4,
+        "process_id": 2, "local_device_ids": [2],
+    }]

@@ -1,7 +1,7 @@
 """Packed host->device wire format (io/packed.py): roundtrip exactness
 and engine integration.  The reference packs its disk partitions to
 2 bits/base (doc/paper.tex:104); here the pack/unpack pair guards the
-TPU ingest boundary, so any bit-layout drift must break these tests."""
+device ingest boundary, so any bit-layout drift must break these tests."""
 
 import numpy as np
 import pytest

@@ -20,7 +20,7 @@ from dsk_tpu.engine.run import RunParams, execute
 from dsk_tpu.io.bank import open_bank
 from dsk_tpu.io.batch import batch_iterator
 from dsk_tpu.kmer import codec
-from dsk_tpu.store.hdf5 import OutputStore
+from dsk_tpu.store.output import OutputStore
 
 
 def _result_dict(res):
@@ -143,7 +143,7 @@ def test_execute_routing_overflow_resumes(data_dir, tmp_path, monkeypatch):
 
     expect = oracle.count_bank(uri, 27)
     got = {}
-    with OutputStore.load(out.h5_path) as store:
+    with OutputStore.load(out.store_path) as store:
         for v, a in store.iter_items():
             got[v] = got.get(v, 0) + a
     assert got == expect
@@ -221,7 +221,7 @@ def test_execute_wire_overflow_resumes(tmp_path, monkeypatch):
     for r in reads:
         oracle.count_sequence(want, r.encode(), 27)
     got = {}
-    with OutputStore.load(out.h5_path) as store:
+    with OutputStore.load(out.store_path) as store:
         for v, a in store.iter_items():
             got[v] = got.get(v, 0) + a
     assert got == dict(want)

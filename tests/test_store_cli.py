@@ -11,7 +11,7 @@ from dsk_tpu import oracle
 from dsk_tpu.engine import processors
 from dsk_tpu.engine.run import RunParams, execute
 from dsk_tpu.kmer import codec
-from dsk_tpu.store.hdf5 import OutputStore
+from dsk_tpu.store.output import OutputStore
 from tests.conftest import load_histo_fixture
 
 
@@ -25,7 +25,7 @@ def test_store_roundtrip(tmp_path):
     hist[1] = 1
     hist[3] = 1
     hist[9] = 1
-    path = str(tmp_path / "t.h5")
+    path = str(tmp_path / "t.dsk")
     with OutputStore.create(path, k) as store:
         store.write_solid_partition(0, kmers, counts)
         store.write_histogram(hist)
@@ -54,7 +54,7 @@ def test_end_to_end_run_k27(data_dir, tmp_path):
         row_len=128,
     )
     out = execute(params)
-    with OutputStore.load(out.h5_path) as store:
+    with OutputStore.load(out.store_path) as store:
         hist = store.histogram()
         expected = load_histo_fixture(data_dir / "k27.histo")
         assert {a: int(hist[a]) for a in range(1, 10001)} == expected
@@ -151,7 +151,7 @@ def test_cli_dsk_and_dsk2ascii(data_dir, tmp_path):
     r2 = subprocess.run(
         [
             sys.executable, "-m", "dsk_tpu.cli.dsk2ascii",
-            "-file", out_prefix + ".h5", "-c",
+            "-file", out_prefix + ".dsk", "-c",
         ],
         capture_output=True, text=True,
         env={"JAX_PLATFORMS": "cpu", "PATH": "/usr/bin:/bin:/usr/local/bin",
@@ -175,7 +175,7 @@ def test_k_longer_than_read(data_dir, tmp_path):
     )
     out = execute(params)
     assert out.n_solid == 0
-    with OutputStore.load(out.h5_path) as store:
+    with OutputStore.load(out.store_path) as store:
         assert store.n_solid() == 0
 
 
@@ -216,7 +216,7 @@ def test_end_to_end_dist_engine(data_dir, tmp_path):
         engine="dist",
     )
     out = execute(params)
-    with OutputStore.load(out.h5_path) as store:
+    with OutputStore.load(out.store_path) as store:
         expected = load_histo_fixture(data_dir / "k27.histo")
         hist = store.histogram()
         assert {a: int(hist[a]) for a in range(1, 10001)} == expected
@@ -234,7 +234,7 @@ def test_dsk2ascii_fasta_fastq_modes(data_dir, tmp_path):
     from dsk_tpu.store import text as store_text
     import io as _io
 
-    with OutputStore.load(str(tmp_path / "s.h5")) as store:
+    with OutputStore.load(str(tmp_path / "s.dsk")) as store:
         buf = _io.BytesIO()
         store_text.dump_ascii(store, buf, fasta=True)
         assert buf.getvalue() == b">0__1\nACTGTACGTATAAGA\n"
@@ -254,7 +254,7 @@ def test_end_to_end_large_k(data_dir, tmp_path):
     )
     out = execute(params)
     expected = oracle.count_bank(params.file, 63)
-    with OutputStore.load(out.h5_path) as store:
+    with OutputStore.load(out.store_path) as store:
         assert store.nb_words == 4
         assert dict(store.iter_items()) == expected
 
@@ -277,7 +277,7 @@ def test_end_to_end_fastq_gz(tmp_path):
         out=str(tmp_path / "fq"), verbose=0, batch_rows=8, row_len=32,
     )
     out = execute(params)
-    with OutputStore.load(out.h5_path) as store:
+    with OutputStore.load(out.store_path) as store:
         assert dict(store.iter_items()) == oracle.count_bank(str(fq), 11)
 
 
@@ -292,22 +292,20 @@ def test_album_file_end_to_end(data_dir, tmp_path):
     )
     out = execute(params)
     files = f"{data_dir}/c1.fasta.gz,{data_dir}/c2.fasta.gz"
-    with OutputStore.load(out.h5_path) as store:
+    with OutputStore.load(out.store_path) as store:
         assert dict(store.iter_items()) == oracle.count_bank(files, 27)
 
 
 def test_solid_kmers_out_and_out_compress(data_dir, tmp_path):
-    """-solid-kmers-out redirects the store; -out-compress gzips its
+    """-solid-kmers-out redirects the store; -out-compress compresses its
     datasets; both leave the dump byte-identical (the reference's
     upstream parser defines both flags, SURVEY.md §2.2 CLI surface)."""
-    import h5py
-
     from dsk_tpu.store import text as store_text
 
-    def dump_lines(h5_path):
+    def dump_lines(store_path):
         import io as _io
 
-        with OutputStore.load(h5_path) as store:
+        with OutputStore.load(store_path) as store:
             buf = _io.BytesIO()
             store_text.dump_ascii(store, buf, False, False)
             return sorted(buf.getvalue().decode().splitlines())
@@ -319,28 +317,29 @@ def test_solid_kmers_out_and_out_compress(data_dir, tmp_path):
     )
     execute(plain)
 
-    custom_h5 = str(tmp_path / "elsewhere" / "custom.h5")
-    os.makedirs(os.path.dirname(custom_h5))
+    custom_store = str(tmp_path / "elsewhere" / "custom.dsk")
+    os.makedirs(os.path.dirname(custom_store))
     redirected = RunParams(
         file=str(data_dir / "longread.fasta"), kmer_size=27,
-        out=str(tmp_path / "redir"), solid_kmers_out=custom_h5,
+        out=str(tmp_path / "redir"), solid_kmers_out=custom_store,
         out_compress=True, verbose=0, batch_rows=256, row_len=256,
     )
     out = execute(redirected)
-    assert out.h5_path == custom_h5
-    assert os.path.exists(custom_h5)
-    assert not os.path.exists(str(tmp_path / "redir") + ".h5")
+    assert out.store_path == custom_store
+    assert os.path.exists(custom_store)
+    assert not os.path.exists(str(tmp_path / "redir") + ".dsk")
 
-    with h5py.File(custom_h5, "r") as f:
+    with OutputStore.load(custom_store) as store:
+        f = store._f
         parts = [n for n in f["dsk/solid"]]
         assert parts, "no solid partitions written"
         for n in parts:
             ds = f["dsk/solid"][n]
             if ds.shape[0]:
-                assert ds.compression == "gzip"
-        assert f["histogram/histogram"].compression == "gzip"
+                assert ds.compression == "zlib"
+        assert f["histogram/histogram"].compression == "zlib"
 
-    assert dump_lines(custom_h5) == dump_lines(str(tmp_path / "plain") + ".h5")
+    assert dump_lines(custom_store) == dump_lines(str(tmp_path / "plain") + ".dsk")
 
 
 def test_out_tmp_places_cache(data_dir, tmp_path, monkeypatch):
@@ -366,3 +365,20 @@ def test_out_tmp_places_cache(data_dir, tmp_path, monkeypatch):
     assert got == oracle.count_bank(uri, 27)
     assert seen and all(os.path.dirname(p) == str(tmpdir) for p in seen)
     assert list(tmpdir.iterdir()) == []  # cache cleaned up after the run
+
+
+def test_dsk2ascii_imports_no_jax():
+    """dsk2ascii's parallel dump spawns worker processes that import its
+    module; that import chain must never import jax (a worker that
+    initialised a device backend would contend for the card)."""
+    code = (
+        "import sys, dsk_tpu.cli.dsk2ascii, dsk_tpu.cli.dskdump; "
+        "sys.exit(1 if 'jax' in sys.modules else 0)"
+    )
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    r = subprocess.run(
+        [sys.executable, "-c", code], cwd=root,
+        capture_output=True, text=True,
+        env={**os.environ, "PYTHONPATH": root},
+    )
+    assert r.returncode == 0, r.stderr

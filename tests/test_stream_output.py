@@ -15,7 +15,7 @@ from dsk_tpu import oracle
 from dsk_tpu.dist.engine import DistCountEngine
 from dsk_tpu.engine.run import RunParams, execute
 from dsk_tpu.kmer import codec
-from dsk_tpu.store.hdf5 import OutputStore
+from dsk_tpu.store.output import OutputStore
 
 
 def store_as_dict(path):
@@ -78,7 +78,7 @@ def test_execute_streaming_multipass_matches_oracle(
     out = execute(params)
     assert out.result.kmers.size == 0  # streaming: slim in-memory result
     expect = oracle.count_bank(uri, 27)
-    assert store_as_dict(out.h5_path) == expect
+    assert store_as_dict(out.store_path) == expect
     assert out.n_solid == len(expect)
     assert out.info["config"]["nb_passes"] >= 2
 
@@ -93,7 +93,7 @@ def test_streaming_solidity_threshold(data_dir, tmp_path):
     expect = {
         v: a for v, a in oracle.count_bank(uri, 27).items() if a >= 3
     }
-    assert store_as_dict(out.h5_path) == expect
+    assert store_as_dict(out.store_path) == expect
     assert out.n_solid == len(expect)
     # histogram still counts ALL distinct kmers (reference semantics)
     full = oracle.count_bank(uri, 27)
@@ -101,7 +101,7 @@ def test_streaming_solidity_threshold(data_dir, tmp_path):
 
 
 def test_truncate_partitions_drops_partial_pass(tmp_path):
-    path = str(tmp_path / "t.h5")
+    path = str(tmp_path / "t.dsk")
     store = OutputStore.create(path, 15)
     k0 = np.arange(8, dtype=np.uint32).reshape(8, 1)
     store.append_solid_partition(0, k0, np.ones(8, np.int32))
@@ -150,7 +150,7 @@ def test_streaming_resume_skips_done_passes(data_dir, tmp_path, monkeypatch):
 
     import os
 
-    ck = RunParams(**common).out_prefix() + ".ckpt.h5"
+    ck = RunParams(**common).out_prefix() + ".ckpt"
     assert os.path.exists(ck)
 
     recounted = []
@@ -165,7 +165,7 @@ def test_streaming_resume_skips_done_passes(data_dir, tmp_path, monkeypatch):
     assert n_passes >= 2
     assert 0 not in recounted  # pass 0 came from the checkpointed store
     assert len(recounted) == n_passes - 1
-    assert store_as_dict(out.h5_path) == oracle.count_bank(uri, 27)
+    assert store_as_dict(out.store_path) == oracle.count_bank(uri, 27)
     assert not os.path.exists(ck)
 
 
@@ -216,7 +216,7 @@ def test_iter_items_sorted_streaming_merge(data_dir, tmp_path, monkeypatch):
         file=uri, kmer_size=27, abundance_min=1,
         out=str(tmp_path / "sm"), verbose=0, batch_rows=512, row_len=128,
     ))
-    with OutputStore.load(out.h5_path) as store:
+    with OutputStore.load(out.store_path) as store:
         merged = list(store.iter_items_sorted())
         full = sorted(store.iter_items())
     assert merged == full
@@ -224,7 +224,7 @@ def test_iter_items_sorted_streaming_merge(data_dir, tmp_path, monkeypatch):
 
 
 def test_iter_items_sorted_raises_without_run_map(tmp_path):
-    path = str(tmp_path / "legacy.h5")
+    path = str(tmp_path / "legacy.dsk")
     store = OutputStore.create(path, 15)
     k0 = np.arange(8, dtype=np.uint32).reshape(8, 1)
     store.append_solid_partition(0, k0, np.ones(8, np.int32))
@@ -235,7 +235,7 @@ def test_iter_items_sorted_raises_without_run_map(tmp_path):
 
 
 def test_truncate_keeps_run_map_at_pass_boundary(tmp_path):
-    path = str(tmp_path / "t.h5")
+    path = str(tmp_path / "t.dsk")
     store = OutputStore.create(path, 15)
     k0 = np.arange(8, dtype=np.uint32).reshape(8, 1)
     store.append_solid_partition(0, k0, np.ones(8, np.int32))
@@ -296,7 +296,7 @@ def test_execute_per_bank_solidity_streams(data_dir, tmp_path):
         batch_rows=512, row_len=128, engine="dist",
     )
     execute(params)
-    got = store_as_dict(str(tmp_path / "mn.h5"))
+    got = store_as_dict(str(tmp_path / "mn.dsk"))
     pb = oracle.count_bank_per_bank(files, 27)
     want = {
         v: int(vec.sum())

@@ -1,7 +1,7 @@
 """Superkmer-compressed routing on the CPU mesh (SURVEY.md C6;
 reference CHANGELOG.md:13 — KMC3-style superkmer rework).
 
-Byte-exactness vs the oracle plus the ICI-bytes accounting: a routed
+Byte-exactness vs the oracle plus the interconnect-bytes accounting: a routed
 record carries (RW+1) u32 words for ~mean-span windows, vs (WK+1) words
 PER window for hash routing.
 """
