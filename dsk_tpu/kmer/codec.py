@@ -310,8 +310,8 @@ def canonical_windows(codes: np.ndarray, k: int) -> tuple[np.ndarray, np.ndarray
     canonical packed value for each window start position and valid is a
     bool array (window lies fully inside a run of valid bases).
 
-    For k <= 32 this is vectorized numpy on uint64; for larger k it falls
-    back to python ints (used only by tests / the oracle on small data).
+    For k <= 32 this is vectorized numpy on uint64; for larger k it rolls
+    python ints along the sequence (O(1) big-int operations per window).
     """
     codes = np.asarray(codes, dtype=np.uint8)
     n = codes.shape[0]
@@ -328,15 +328,16 @@ def canonical_windows(codes: np.ndarray, k: int) -> tuple[np.ndarray, np.ndarray
         c = np.where(is_valid, codes, 0)
         fwd, rc = _packed_windows_doubling(c, k)
         return np.minimum(fwd, rc), valid
-    codes_i = np.where(is_valid, codes, 0).astype(np.uint64)
-    # large-k slow path (python ints)
-    vals = np.empty(nw, dtype=object)
-    for i in range(nw):
-        if not valid[i]:
-            vals[i] = 0
-            continue
-        f = 0
-        for j in range(k):
-            f = (f << 2) | int(codes_i[i + j])
-        vals[i] = canonical_value(f, k)
+    # large k: python ints, forward and revcomp values rolled one base at
+    # a time (invalid windows hold 0)
+    mask = (1 << (2 * k)) - 1
+    top = 2 * (k - 1)
+    vals = np.zeros(nw, dtype=object)
+    f = r = 0
+    for i, c in enumerate(np.where(is_valid, codes, 0).tolist()):
+        f = ((f << 2) | c) & mask
+        r = (r >> 2) | ((c ^ 2) << top)
+        j = i - k + 1
+        if j >= 0 and valid[j]:
+            vals[j] = min(f, r)
     return vals, valid

@@ -17,7 +17,10 @@ Rows of an uncompressed dataset are read and written in place (a slice
 read is one seek + read).  A compressed dataset stores each append as one
 zlib block; reads decompress the blocks a slice overlaps.  Writes of a
 dataset's metadata go through a temporary file and a rename, so a crash
-leaves either the old or the new metadata.
+leaves either the old or the new metadata.  The rows a dataset holds are
+the whole rows of `.bin` (uncompressed) or the indexed blocks
+(compressed); an append first cuts `.bin` back to them, so bytes a crash
+left past them are written over, never read.
 """
 
 from __future__ import annotations
@@ -153,18 +156,24 @@ class Dataset:
         arr = np.ascontiguousarray(arr, dtype=self.dtype)
         return arr.reshape((-1,) + self._row_shape)
 
+    def _write_at(self, offset: int, data: bytes) -> None:
+        # bytes past `offset` are a write a crash cut short (a torn row,
+        # or a block that never reached the index): write over them
+        with open(self._bin, "r+b") as f:
+            f.seek(offset)
+            f.truncate()
+            f.write(data)
+
     def append(self, rows) -> None:
         rows = self._as_rows(rows)
         if rows.shape[0] == 0:
             return
         if not self.compression:
-            with open(self._bin, "ab") as f:
-                f.write(rows.tobytes())
+            self._write_at(len(self) * self._row_bytes, rows.tobytes())
             return
-        blob = zlib.compress(rows.tobytes(), 1)
-        with open(self._bin, "ab") as f:
-            f.write(blob)
         meta = self._meta()
+        blob = zlib.compress(rows.tobytes(), 1)
+        self._write_at(sum(nb for _, nb in meta["blocks"]), blob)
         meta["blocks"].append([int(rows.shape[0]), len(blob)])
         _write_json(self._meta_path, meta)
         self._cache = (None, None)
@@ -176,12 +185,20 @@ class Dataset:
             return
         if n > len(self):
             raise ValueError("a compressed dataset cannot grow by resize")
-        rows = self[:n]
-        open(self._bin, "wb").close()
+        # keep the blocks wholly below n; the rows of the block cut in two
+        # become a new block
         meta = self._meta()
-        meta["blocks"] = []
+        keep, row = [], 0
+        for nr, nb in meta["blocks"]:
+            if row + nr > n:
+                break
+            keep.append([nr, nb])
+            row += nr
+        tail = self[row:n]
+        meta["blocks"] = keep
         _write_json(self._meta_path, meta)
-        self.append(rows)
+        self._cache = (None, None)
+        self.append(tail)
 
     def _read_raw(self, start: int, stop: int) -> np.ndarray:
         count = max(stop - start, 0)

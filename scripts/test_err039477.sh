@@ -39,7 +39,7 @@ fi
 
 # reference defaults: only -file is given a value; -out for a stable path
 python -m dsk_tpu.cli.dsk -file "$F" -out /tmp/ERR039477 -verbose 1
-python -m dsk_tpu.cli.dsk2ascii -file /tmp/ERR039477.h5 -out /tmp/ERR039477.txt
+python -m dsk_tpu.cli.dsk2ascii -file /tmp/ERR039477.dsk -out /tmp/ERR039477.txt
 
 LC_ALL=C sort /tmp/ERR039477.txt > /tmp/ERR039477.sorted.txt
 md5sum /tmp/ERR039477.sorted.txt | awk '{print $1}' > /tmp/ERR039477.sorted.md5

@@ -42,6 +42,28 @@ def test_append_read_truncate(tmp_path, compression):
     assert np.array_equal(f["dsk/solid/0"][:], got[:6])
 
 
+@pytest.mark.parametrize("compression", [None, "zlib"])
+def test_append_after_crash_leftovers(tmp_path, compression):
+    """Bytes a crash left in .bin past the dataset's rows (a torn row, or
+    a block written before the index) are written over by the next
+    append, and reads see only indexed rows."""
+    path = str(tmp_path / "s.dsk")
+    g = Container(path, "w").create_group("solid")
+    ds = g.create_dataset("0", dtype=REC, compression=compression)
+    ds.append(_rows(5))
+    with open(path + "/solid/0.bin", "ab") as f:
+        f.write(b"\x01" * (REC.itemsize - 1))  # an interrupted append
+    ds = Container(path, "a")["solid/0"]
+    assert ds.shape == (5,)
+    ds.append(_rows(3, base=5))
+    ds = Container(path, "r")["solid/0"]
+    assert ds.shape == (8,)
+    got = ds[:]
+    assert np.array_equal(got["value"][:, 0], np.arange(8))
+    assert np.array_equal(got["abundance"], [1, 2, 3, 4, 5, 1, 2, 3])
+    assert np.array_equal(ds[4:7], got[4:7])
+
+
 def test_groups_attrs_and_iteration(tmp_path):
     path = str(tmp_path / "c")
     f = Container(path, "w")

@@ -148,6 +148,24 @@ def test_packed_windows_doubling_matches_naive(k):
             assert int(v[i]) == codec.canonical_value(f, k)
 
 
+@pytest.mark.parametrize("k", [33, 63, 64, 65, 96, 127])
+def test_canonical_windows_large_k_matches_naive(k):
+    # the rolled python-int path equals the per-window definition
+    rng = np.random.default_rng(200 + k)
+    codes = rng.integers(0, 4, size=400, dtype=np.uint8)
+    codes[[50, 51, 300]] = codec.INVALID  # a 248-base valid run for k=127
+    v, ok = codec.canonical_windows(codes, k)
+    assert ok.any()
+    for i in range(codes.shape[0] - k + 1):
+        win = codes[i : i + k]
+        valid = bool((win <= 3).all())
+        assert valid == ok[i]
+        f = 0
+        for b in win:
+            f = (f << 2) | int(b)
+        assert v[i] == (codec.canonical_value(f, k) if valid else 0)
+
+
 @pytest.mark.parametrize("k", [5, 27, 31, 32, 33, 63, 65, 96])
 def test_hash_canonical_windows_invariance(k):
     # key(kmer) == key(revcomp(kmer)) for any k; distinct keys == distinct
